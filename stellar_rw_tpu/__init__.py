@@ -1,3 +1,3 @@
-"""TPU-native second-order random-walk + skip-gram embedding framework."""
+"""Second-order random-walk (node2vec) + skip-gram embedding framework in JAX."""
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""CLI entry point: the TPU-native `Main` (reference Main.scala:18-27,109-127).
+"""CLI entry point: the counterpart of the reference `Main`
+(reference Main.scala:18-27,109-127).
 
 Same three subcommands dispatched on --cmd:
   node2vec   : walks + skip-gram, writes /path, /vec, /bin
@@ -202,7 +203,10 @@ def run_job(params: Params) -> str:
                          n2v.output_partitions(params))
     elif params.cmd == TaskName.node2vec:
         walks, graph = do_random_walk(params)
+        t0 = time.time()
         tokens, w_in, w_out = n2v.embed_walks(walks, graph, params)
+        print(f"embeddings: {len(tokens)} x {w_in.shape[1]} trained in "
+              f"{time.time() - t0:.2f}s ({params.w2v_iter} epochs)")
         n2v.save_model(params.output, tokens, w_in, w_out, params)
         gio.save_vectors(np.asarray(tokens), w_in, params.output,
                          n2v.output_partitions(params))
@@ -227,6 +231,8 @@ def main(argv: list[str] | None = None) -> int:
     # src/main/resources/log4j.properties; SURVEY.md §5.5)
     from .utils.logging import configure
     configure(params.log_dir)
+    from .utils.compile_cache import configure_compile_cache
+    configure_compile_cache()
     # multi-host: join the jax.distributed process group when SRW_COORDINATOR /
     # SRW_NUM_PROCESSES are set (one process per host; see parallel/multihost.py)
     from .parallel.multihost import maybe_initialize_from_env

@@ -1,6 +1,6 @@
 """Host-side CSR graph representation.
 
-The TPU-native analog of the reference's per-executor `GraphMap` singleton
+The counterpart of the reference's per-executor `GraphMap` singleton
 (reference algorithm/GraphMap.scala:11-120): instead of a mutable JVM hashmap CSR filled
 by side effect, the graph is built once on the host as dense, static-shape arrays and
 uploaded to device HBM. Vertex ids are densified (original id -> contiguous index) so all
@@ -141,7 +141,7 @@ class CSRGraph:
 
         Replaces the reference's O(deg) linear `exists` membership scan
         (RandomSample.scala:38) with <= max_probes random accesses on device —
-        cheaper than binary search on TPU, where each probe is a full-width gather.
+        cheaper than binary search, where each probe is a full-width gather.
 
         Built fully vectorized (no per-vertex Python loop — required at
         LiveJournal scale, millions of rows): all keys attempt probe slot i in a

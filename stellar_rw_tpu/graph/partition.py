@@ -1,6 +1,6 @@
 """Host-side graph partitioner: per-shard CSR with halo replication.
 
-TPU analog of the reference's two partitioning policies (SURVEY.md §2.3):
+Counterpart of the reference's two partitioning policies (SURVEY.md §2.3):
   - uniform hash: shard(v) = dense_id(v) % S, mirroring Spark's HashPartitioner with
     Int identity hashCode (reference RandomWalk.scala:16, UniformRandomWalk.scala:42)
   - explicit vertex-cut: shard(v) = the vertex's home partition from the edge file's

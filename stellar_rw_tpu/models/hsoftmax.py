@@ -3,7 +3,7 @@
 MLlib Word2Vec (the reference's trainer, Main.scala:89-97,116) is skip-gram +
 hierarchical softmax over a Huffman tree; it has no negative-sampling mode.
 This framework's product trainer swaps HS for negative sampling (the
-BASELINE.json-sanctioned design change — SGNS is the MXU-friendly
+BASELINE.json-sanctioned design change — SGNS is the matmul-friendly
 formulation), with QUALITY parity as the contract. This module supplies the
 missing evidence link (round-4 verdict missing item 3): a faithful HS trainer
 to run side by side with SGNS on the identical corpus at the reference
@@ -22,7 +22,7 @@ Formulation notes:
     the tree path belongs to the CENTER word and the input row to the
     CONTEXT word (word2vec.c's skip-gram loop), so the path-node gather
     [B, T, codelen, D] is per-position, not per-pair, and the logits are one
-    einsum on the MXU.
+    einsum.
   * Scatter-mean normalization per row, like the SGNS trainer — the two
     trainers share the same batching convention.
 """
@@ -118,8 +118,8 @@ def _hs_epoch(syn0, syn1, corpus, points, labels, pmask, key,
         vo = syn1[pts.reshape(-1)].reshape(B, T, Lc, D)   # [B, T, L, D]
         # per-offset accumulation: 2w sequential [B,T,*] einsum passes instead
         # of one stacked [B,T,2w,L/D] program — same math (fp order differs),
-        # bounded temporaries (the stacked form's ~0.3-1 GB intermediates
-        # reproducibly crash this environment's TPU worker)
+        # bounded temporaries (the stacked form materializes ~0.3-1 GB
+        # intermediates)
         d_vo = jnp.zeros_like(vo)
         acc0 = jnp.zeros_like(ein)
         for i, d in enumerate(offs):

@@ -1,6 +1,6 @@
 """The node2vec pipeline: walks -> skip-gram embeddings.
 
-TPU-native equivalent of the reference's task wiring (reference Main.scala:109-127):
+The counterpart of the reference's task wiring (reference Main.scala:109-127):
 `randomwalk` produces the corpus, `node2vec` additionally trains embeddings,
 `embedding` trains from a walks file. Model artifacts land in <output>/bin, vectors in
 <output>/vec, walks in <output>/path (reference Property.scala:5-7, Main.scala:36-44).
@@ -269,7 +269,7 @@ def _round_maker(graph: CSRGraph, params: Params,
         starts_dev = jax.device_put(
             jnp.asarray(starts_pad),
             NamedSharding(mesh, P((distributed.AXIS, distributed.LANE))))
-        C = distributed.auto_capacity(graph, route_host, S, W_pad // S)
+        C = distributed.auto_capacity(graph, route_host, SH, W_pad // S, L)
         C = max(1, min(C, W_pad // S))
 
         def make_round(r: int):

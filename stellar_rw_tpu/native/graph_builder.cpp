@@ -4,7 +4,7 @@
 // This is the framework's counterpart of the reference's graph-build stage
 // (reference UniformRandomWalk.scala:17-88 / VCutRandomWalk.scala:13-98, which lean on
 // the Spark engine's shuffle machinery): a one-time host preprocessing pass before the
-// arrays are uploaded to TPU HBM. The pure-Python builder in graph/csr.py has the same
+// arrays are uploaded to device memory. The pure-Python builder in graph/csr.py has the same
 // semantics but loops per line / per row, which is too slow beyond ~1M edges; this
 // C++ path handles LiveJournal-scale inputs. Exposed via a C ABI consumed with ctypes
 // (stellar_rw_tpu/native/__init__.py); bit-identical outputs are enforced by

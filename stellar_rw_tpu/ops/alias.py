@@ -1,6 +1,6 @@
 """Host-side Vose alias-table construction for a single discrete distribution.
 
-Used for the word2vec negative-sampling unigram table (counts^0.75) — the TPU-native
+Used for the word2vec negative-sampling unigram table (counts^0.75) — the device
 replacement for hierarchical softmax in the reference's MLlib Word2Vec dependency
 (reference Main.scala:89-97; BASELINE.json swaps HS for negative sampling). Per-row
 CSR alias tables live in graph/csr.py.

@@ -3,13 +3,8 @@
 The reference has no GNN layer, but BASELINE.json's north star requires "generic sparse
 gather/scatter and neighborhood-aggregate primitives (SpMM/SDDMM) so walk corpora feed
 GNN-style layers". These are the XLA formulations (gather + segment-sum over the edge
-axis — bandwidth-bound, fully fused by XLA). Measured on v5e (bench phase
-spmm_gnn_feed): spmm 8.2e7 edges/s, sddmm 1.7e8 — both bound by the random
-per-arc feature-row gather. A Pallas FusedMM-style variant was evaluated and
-ruled out for this hardware generation: Mosaic exposes no vector gather (the
-one-hot MXU workaround costs O(V*lanes) flops per row and per-arc DMA issue
-overhead dwarfs the 512 B payloads) — see BASELINE.md's Pallas walk-kernel
-findings, which measured the same economics.
+axis — bandwidth-bound, fully fused by XLA; the random per-arc feature-row
+gather is the expected bound). Their rate on the GPU is not measured yet.
 
 Conventions: graphs are the CSR arrays of graph/csr.py (dense vertex ids). All ops are
 jittable and differentiable (pure gathers/scatters).

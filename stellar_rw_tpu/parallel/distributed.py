@@ -1,8 +1,8 @@
 """Multi-chip walk engine: shard_map over a 1-D device mesh.
 
-TPU-native replacement for the reference's BSP superstep machinery
+Accelerator replacement for the reference's BSP superstep machinery
 (reference RandomWalk.scala:91-192): the per-superstep Spark shuffle of boundary
-walkers becomes a CAPACITY-BOUNDED bucketed `lax.all_to_all` over ICI, the
+walkers becomes a CAPACITY-BOUNDED bucketed `lax.all_to_all` between devices, the
 routing-table RDD/zipPartitions placement trick becomes a replicated i32[V]
 vertex->shard array, and driver-side convergence counting disappears entirely
 (dense lock-step stepping with done-masks; SURVEY.md §2.3, §5.8).
@@ -80,9 +80,9 @@ def _key_data(key) -> jax.Array:
 
 def make_mesh(num_shards: int | None = None, lanes: int = 1) -> Mesh:
     """2-D (shards x lanes) device mesh. Graph arrays shard over `shards` and
-    REPLICATE over `lanes` — the TPU analog of the reference sharing one
+    REPLICATE over `lanes` — the counterpart of the reference sharing one
     GraphMap per executor across its task slots (GraphMap.scala:11; SURVEY.md
-    §2.3-3): lanes chips serve one CSR shard, cutting halo replication by
+    §2.3-3): lanes devices serve one CSR shard, cutting halo replication by
     ~lanes while walkers stay sharded over all shards*lanes devices."""
     devs = jax.devices()
     n = num_shards or (len(devs) // max(lanes, 1))
@@ -540,8 +540,8 @@ def device_put_sharded_graph_streamed(graph: CSRGraph, mesh: Mesh,
                                       plan=None):
     """Build + upload ONE graph shard at a time — peak host memory is the
     source graph + a single shard, not all S stacked shards (the round-4
-    single-host memory wall: 50M V / 300M arcs OOM'd a 125 GB host through
-    the stacked path, BASELINE.md).
+    single-host memory wall: 50M V / 300M arcs ran out of a 125 GB host
+    through the stacked path).
 
     Multi-process aware: every process runs the cheap sizing pre-pass over
     all shards (shapes must agree globally) but BUILDS AND UPLOADS only the
@@ -631,17 +631,20 @@ BUCKET4 = 4  # membership bucket slots (ops/sampling.BUCKET_SLOTS)
 
 
 def auto_capacity(graph: CSRGraph, route: np.ndarray, S: int, n: int,
-                  headroom: float = 1.5, floor: int = 32) -> int:
+                  lanes: int = 1, headroom: float = 1.5,
+                  floor: int = 32) -> int:
     """Per-destination bucket capacity from the graph's measured boundary-arc
-    fraction: expected boundary walkers per shard ~= n * cross_frac, spread over
-    S-1 destinations; headroom + overflow rounds absorb power-law skew."""
+    fraction: expected boundary walkers per device ~= n * cross_frac, spread
+    over the (S-1) * lanes devices of the other S-1 graph shards (a device
+    never sends to a lane of its own shard); headroom + overflow rounds absorb
+    power-law skew."""
     E = graph.num_edges
     if E == 0 or S <= 1:
         return 1
     deg = (graph.offsets[1:] - graph.offsets[:-1]).astype(np.int64)
     src_route = np.repeat(route, deg)
     cross_frac = float((src_route != route[graph.cols]).mean())
-    per_bucket = cross_frac * n / max(S - 1, 1)
+    per_bucket = cross_frac * n / ((S - 1) * lanes)
     return int(np.clip(math.ceil(headroom * per_bucket), floor, n))
 
 
@@ -740,7 +743,7 @@ def distributed_random_walks(
     starts_pad[:W] = starts
     n = num_walks * W_pad // D
     C = capacity if capacity is not None else auto_capacity(
-        graph, route_host, D, n)
+        graph, route_host, S, n, L)
     C = max(1, min(C, n))
     sampler, max_rounds = sampling.plan_sampler(sampler, p, q)
     spec = WalkSpec(

@@ -1,10 +1,10 @@
 """Multi-host execution: process bootstrap + global-mesh walks with per-host output.
 
 The reference scales across machines with a Spark driver + executors
-(SURVEY.md §2.3-6); the TPU-native analog is `jax.distributed`: ONE PROCESS PER
-HOST, each attached to its local chips, all members of one global
-`jax.sharding.Mesh`. Collectives ride ICI within a host/slice and DCN across
-hosts — the walk engine (parallel/distributed.py) is written purely against the
+(SURVEY.md §2.3-6); the counterpart here is `jax.distributed`: ONE PROCESS PER
+HOST, each attached to its local cards, all members of one global
+`jax.sharding.Mesh`. Collectives ride NVLink within a host and the network
+across hosts — the walk engine (parallel/distributed.py) is written purely against the
 mesh axis, so the superstep path is untouched; this module only adds
 
   * process-group initialization (explicit args or SRW_* env vars),
@@ -18,7 +18,7 @@ mesh axis, so the superstep path is untouched; this module only adds
 Launch (per host):
   SRW_COORDINATOR=host0:9731 SRW_NUM_PROCESSES=4 SRW_PROCESS_ID=<i> \
       python -m stellar_rw_tpu --cmd randomwalk --shards 16 ...
-(On Cloud TPU pods jax.distributed.initialize() autodetects all three.)
+Nothing tells JAX of a cluster by default: the three variables are required.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def global_mesh(num_shards: int | None = None, lanes: int = 1):
     lanes groups CONSECUTIVE global devices (jax.devices() is process-major),
     so lanes <= chips-per-host keeps each replicated graph shard inside one
     host — the per-executor GraphMap sharing of the reference, with the shard
-    served over ICI instead of DCN."""
+    served over the host's links instead of the network."""
     import jax
     from jax.sharding import Mesh
 
@@ -147,7 +147,7 @@ def multihost_random_walks(
     starts_pad[:W] = np.arange(W, dtype=np.int32)
     n = num_walks * W_pad // D
     C = capacity if capacity is not None else distributed.auto_capacity(
-        graph, route_host, D, n)
+        graph, route_host, S, n, L)
     C = max(1, min(C, n))
     sampler, max_rounds = sampling.plan_sampler(sampler, p, q)
     spec = WalkSpec(

@@ -7,7 +7,7 @@ of the reference can reuse their invocations unchanged:
   - required flags:       --input/--output/--cmd (CommandParser.scala:64-75)
   - task names:           node2vec | randomwalk | embedding (CommandParser.scala:7-10)
 
-TPU-native reinterpretations (documented, not silently changed):
+Reinterpretations of reference flags (documented, not silently changed):
   - rddPartitions: number of graph shards / output files (reference: Spark RDD partitions)
   - w2vPartitions: data-parallel degree of the skip-gram trainer
 """
@@ -49,7 +49,7 @@ class Params:
     partitioned: bool = False
     cmd: TaskName = TaskName.node2vec
 
-    # --- TPU-framework extensions (not in the reference flag set) ---
+    # --- framework extensions (not in the reference flag set) ---
     shards: int = 0               # graph shards / devices for the walk engine;
     #                               0 = auto: 1, unless --partitioned true, then
     #                               min(devices, rddPartitions)
@@ -67,7 +67,7 @@ class Params:
     w2v_negatives: int = 5
     resume: bool = False          # resume skip-gram training from <output>/bin checkpoint
     checkpoint_every: int = 0     # save a trainer checkpoint every N epochs (0 = off)
-    shared_negatives: int = 0     # >0: block-shared negatives (MXU/Pallas skip-gram path)
+    shared_negatives: int = 0     # >0: block-shared negatives (matmul skip-gram path)
     w2v_model_shards: int = 1     # >1: shard embedding tables over the embedding dim
     #                               across devices (column parallelism); total devices
     #                               used by the trainer = w2vPartitions * this
@@ -82,8 +82,9 @@ class Params:
     #                               counter-based streams; bounded memory)
     rng_impl: str = "threefry"    # walk-engine PRNG: "threefry" (cross-platform
     #                               reproducible streams) | "rbg" (XLA
-    #                               RngBitGenerator: ~10x cheaper array draws on
-    #                               TPU; deterministic per platform+version).
+    #                               RngBitGenerator: cheaper array draws, not yet
+    #                               measured on the GPU; deterministic per
+    #                               platform+version).
     #                               Either way all engines/layouts are bitwise
     #                               identical to each other.
 
@@ -106,7 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
     d = Params()
     ap = argparse.ArgumentParser(
         prog="stellar-rw-tpu",
-        description="2nd-order random walk (node2vec) + word2vec on TPU",
+        description="2nd-order random walk (node2vec) + word2vec on GPU",
     )
     ap.add_argument("--walkLength", type=int, default=d.walk_length, help=f"walkLength: {d.walk_length}")
     ap.add_argument("--numWalks", type=int, default=d.num_walks, help=f"numWalks: {d.num_walks}")
@@ -151,7 +152,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpointEvery", type=int, default=d.checkpoint_every,
                     help="save a trainer checkpoint every N epochs (0 = off)")
     ap.add_argument("--sharedNegatives", type=int, default=d.shared_negatives,
-                    help="block-shared negatives kB for the MXU/Pallas skip-gram "
+                    help="block-shared negatives kB for the matmul skip-gram "
                          "path (0 = per-pair negatives)")
     ap.add_argument("--w2vModelShards", type=int, default=d.w2v_model_shards,
                     help="shard word2vec embedding tables over the embedding dim "

@@ -1,4 +1,4 @@
-"""Walk/corpus diagnostics — the TPU build's analog of the reference's accumulators
+"""Walk/corpus diagnostics — the counterpart of the reference's accumulators
 and per-superstep prints (SURVEY.md §5.1, §5.5).
 
 The reference tracks two error counters — "Wrong Transports" (walker landed on a
@@ -82,7 +82,7 @@ def validate_walks(walks: np.ndarray, graph) -> dict:
 def boundary_traffic(walks: np.ndarray, route: np.ndarray) -> dict:
     """Fraction / count of walk transitions that cross shard boundaries — the volume
     the reference pays a Spark shuffle for per superstep (RandomWalk.scala:186-192)
-    and this framework pays an ICI all-to-all for."""
+    and this framework pays a device all-to-all for."""
     a = walks[:, :-1]
     b = walks[:, 1:]
     valid = (a >= 0) & (b >= 0)

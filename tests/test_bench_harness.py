@@ -1,10 +1,10 @@
-"""bench.py orchestration harness (round-3 wedge-proofing).
+"""bench.py orchestration harness.
 
-The round-2 driver record was nulled by one wedged TPU dispatch poisoning the
-whole bench process; the harness now isolates every device phase in a
-disposable subprocess with its own timeout, one fresh-process retry, a global
-deadline, and marker-based result parsing. These tests pin that machinery
-with stub payloads (no device access)."""
+The orchestrator never opens the card: every device phase runs, one at a time,
+in a disposable subprocess with its own timeout, one fresh-process retry, a
+global deadline, and marker-based result parsing, so one crashed or hung phase
+cannot null the record. These tests pin that machinery with stub payloads (no
+device access)."""
 
 import importlib
 import os

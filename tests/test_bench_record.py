@@ -1,7 +1,7 @@
 """Guard the official bench record format.
 
 The driver captures bench.py's stdout tail and parses the LAST JSON line as
-the official record (BENCH_r{N}.json). Rounds 2-3 both scored `parsed: null`
+the official record. Rounds 2-3 both scored `parsed: null`
 because the only output line was enormous (full extras inline) and the
 headline fields sat in the truncated front. The contract now: a DETAIL line
 with everything, then one compact final line with exactly the four headline
@@ -10,6 +10,8 @@ fields — small enough that no tail capture can truncate it."""
 import io
 import json
 import sys
+
+import pytest
 
 sys.path.insert(0, __file__.rsplit("/tests/", 1)[0])
 import bench  # noqa: E402
@@ -48,3 +50,11 @@ def test_final_line_with_null_fields_parses():
                            "vs_baseline": None, "extras": {}})
     final = json.loads(lines[-1])
     assert final["value"] is None and "extras" not in final
+
+
+def test_device_peaks_known_kind_and_unknown_raises():
+    peaks = bench.device_peaks("NVIDIA H100 80GB HBM3")
+    assert peaks["hbm_bytes_per_s"] == 3.35e12
+    assert peaks["l2_bytes"] == 50 * 2**20
+    with pytest.raises(KeyError, match="no published peaks"):
+        bench.device_peaks("Unlisted Accelerator 1")

@@ -1,8 +1,8 @@
 """Static-cascade rejection schedule (ops/sampling.rejection_sample_static).
 
-The static plan replaces the dynamic sampler's while-loops (measured: a
-zero-iteration `lax.while_loop` inside the walk scan costs milliseconds per
-step on v5e) with a fixed compaction-level cascade whose trials are
+The static plan replaces the dynamic sampler's while-loops (which keeps
+`lax.while_loop` out of the walk scan) with a fixed compaction-level cascade
+whose trials are
 evaluated as batched blocks. Trial j consumes the same uniforms in both plans, so corpora
 must be BITWISE identical whenever no compaction buffer overflows; on overflow
 the engine re-dispatches dynamically (full trial-budget semantics preserved).

@@ -107,7 +107,7 @@ def test_token_corpus_roundtrip():
 
 
 def test_shared_negatives_training(karate_path):
-    """The MXU path (block-shared negatives, weighted k/kB) must reach the same
+    """The matmul path (block-shared negatives, weighted k/kB) must reach the same
     downstream quality as exact per-pair negative sampling."""
     g = io.load_edge_list(karate_path, weighted=False, directed=False)
     walks = engine.random_walks(g, walk_length=20, num_walks=10, seed=2)
@@ -166,12 +166,29 @@ def test_dim_sharded_apply_matches_replicated():
 def test_model_sharded_training(karate_path):
     """model_shards=2 (optionally x dp) trains with the tables stored [V, D/2]
     per device and reaches the same downstream quality (SURVEY.md §2.3-5 sharded
-    embedding tables; VERDICT round-1 item 5)."""
+    embedding tables)."""
     g = io.load_edge_list(karate_path, weighted=False, directed=False)
     walks = engine.random_walks(g, walk_length=20, num_walks=10, seed=2)
     cfg = w2v.SGNSConfig(dim=32, window=5, negatives=5, lr=0.2, iters=20, seed=1,
                          model_shards=2)
     w_in, _ = w2v.train_skipgram(walks, g.num_vertices, cfg, num_partitions=2)
+    edges = [(v, int(d)) for v in range(g.num_vertices)
+             for d in g.neighbors(v)[0] if v < int(d)]
+    auc = ev.link_prediction_auc(w_in, np.asarray(edges), g.num_vertices, seed=0)
+    acc = ev.node_classification_accuracy(w_in, ev.karate_labels(g.ids), seed=0)
+    assert auc > 0.7 and acc >= 0.85, (auc, acc)
+
+
+def test_model_sharded_training_one_dp_row(karate_path):
+    """model_shards=2 with a single data-parallel row (the
+    `--w2vModelShards N` flag alone): the corpus is replicated over the one dp
+    row and training reaches the same downstream quality."""
+    g = io.load_edge_list(karate_path, weighted=False, directed=False)
+    walks = engine.random_walks(g, walk_length=20, num_walks=10, seed=2)
+    cfg = w2v.SGNSConfig(dim=32, window=5, negatives=5, lr=0.2, iters=20, seed=1,
+                         model_shards=2)
+    w_in, _ = w2v.train_skipgram(walks, g.num_vertices, cfg)
+    assert w_in.shape == (g.num_vertices, 32) and np.isfinite(w_in).all()
     edges = [(v, int(d)) for v in range(g.num_vertices)
              for d in g.neighbors(v)[0] if v < int(d)]
     auc = ev.link_prediction_auc(w_in, np.asarray(edges), g.num_vertices, seed=0)
@@ -195,7 +212,7 @@ def test_data_parallel_training(karate_path):
 
 
 def test_shared_pos_matches_pair_granular():
-    """The block-position-granular shared-negative step (round-3 table-traffic
+    """The block-position-granular shared-negative step (the table-traffic
     lever) must compute the same update as the pair-granular form — same
     pairs, same gradients, same scatter-mean normalization (fp order aside)."""
     import jax
@@ -300,9 +317,9 @@ def test_shared_conv_dp_branch_matches_pos_dp_branch():
 
 
 def test_shared_band_matches_conv():
-    """The banded-matmul formulation (shared_impl="band" — kept as a measured
-    ablation; v5e runs it slower than conv) must compute the same update as
-    the conv formulation, including with padding present."""
+    """The banded-matmul formulation (shared_impl="band" — kept as the
+    ablation of conv) must compute the same update as the conv formulation,
+    including with padding present."""
     import jax
     import jax.numpy as jnp
 
@@ -325,3 +342,119 @@ def test_shared_band_matches_conv():
                                rtol=2e-4, atol=2e-6)
     np.testing.assert_allclose(np.asarray(a_out), np.asarray(b_out),
                                rtol=2e-4, atol=2e-6)
+
+
+def _sgns_shared_reference(w_in, w_out, centers, contexts, valid, negs, lr,
+                           neg_weight):
+    """Float64 NumPy statement of one block-shared-negative SGNS step:
+    manual gradients, scatter-MEAN updates of the center and context rows,
+    and the shared-negative rows moved by their summed gradient over the
+    block's weighted pair count."""
+    w_in = w_in.astype(np.float64)
+    w_out = w_out.astype(np.float64)
+    vf = valid.astype(np.float64)
+    c = np.where(valid, centers, 0)
+    x = np.where(valid, contexts, 0)
+    sig = lambda z: 1.0 / (1.0 + np.exp(-z))
+    vi, vo, wn = w_in[c], w_out[x], w_out[negs]
+    g_pos = (sig(np.sum(vi * vo, axis=1)) - 1.0) * vf
+    g_neg = sig(vi @ wn.T) * (vf * neg_weight)[:, None]
+    d_vi = g_pos[:, None] * vo + g_neg @ wn
+    d_vo = g_pos[:, None] * vi
+    d_wn = g_neg.T @ vi
+    V = w_in.shape[0]
+    cnt_in = np.maximum(np.bincount(c, weights=vf, minlength=V), 1.0)
+    cnt_out = np.maximum(np.bincount(x, weights=vf, minlength=V), 1.0)
+    acc_in = np.zeros_like(w_in)
+    np.add.at(acc_in, c, d_vi)
+    acc_out = np.zeros_like(w_out)
+    np.add.at(acc_out, x, d_vo)
+    new_in = w_in - lr * acc_in / cnt_in[:, None]
+    new_out = w_out - lr * acc_out / cnt_out[:, None]
+    np.add.at(new_out, negs, -lr * d_wn / max(vf.sum() * neg_weight, 1.0))
+    return new_in, new_out
+
+
+@pytest.mark.parametrize("P,D,kB", [
+    (512, 128, 128),   # aligned
+    (300, 50, 37),     # no axis a power of two
+    (7, 128, 256),     # fewer pairs than shared negatives
+])
+def test_sgns_shared_steps_match_float64_reference(P, D, kB):
+    """The pair-granular and the block-position-granular shared-negative steps
+    both equal the float64 statement of the update. Float32 with sums of at
+    most max(P, kB, D) terms: 2e-5 relative, 1e-6 absolute."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(P + D + kB)
+    V, lr, neg_weight = 97, 0.05, 5 / kB
+    w_in = (rng.standard_normal((V, D)) * 0.3).astype(np.float32)
+    w_out = (rng.standard_normal((V, D)) * 0.3).astype(np.float32)
+    block = rng.integers(0, V, (1, 2 * P)).astype(np.int32)
+    pos_c = rng.integers(0, 2 * P, P).astype(np.int32)
+    pos_x = rng.integers(0, 2 * P, P).astype(np.int32)
+    valid = rng.random(P) > 0.3
+    negs = rng.integers(0, V, kB).astype(np.int32)
+    centers, contexts = block[0][pos_c], block[0][pos_x]
+    want_in, want_out = _sgns_shared_reference(
+        w_in, w_out, centers, contexts, valid, negs, lr, neg_weight)
+
+    got_pair = w2v._sgns_apply_shared(
+        jnp.asarray(w_in), jnp.asarray(w_out), jnp.asarray(centers),
+        jnp.asarray(contexts), jnp.asarray(valid), jnp.asarray(negs), lr,
+        neg_weight=neg_weight)
+    got_pos = w2v._sgns_apply_shared_pos(
+        jnp.asarray(w_in), jnp.asarray(w_out), jnp.asarray(block),
+        jnp.asarray(pos_c), jnp.asarray(pos_x), jnp.asarray(valid),
+        jnp.asarray(negs), lr, neg_weight=neg_weight)
+    for got_in, got_out in (got_pair, got_pos):
+        assert got_in.dtype == jnp.float32
+        np.testing.assert_allclose(np.asarray(got_in), want_in,
+                                   rtol=2e-5, atol=1e-6)
+        np.testing.assert_allclose(np.asarray(got_out), want_out,
+                                   rtol=2e-5, atol=1e-6)
+
+
+def test_shared_pos_matches_pair_granular_dp_branch():
+    """Through the data-parallel (psum) branch too, the block-position step
+    applies the same update as the pair-granular step."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as PS
+
+    rng = np.random.default_rng(5)
+    V, D, B, T, win, kB = 60, 16, 4, 15, 3, 24   # small V: many duplicates
+    block = rng.integers(0, V, (B, T)).astype(np.int32)
+    block[3, 11:] = -1                     # padding present
+    key = jax.random.PRNGKey(21)
+    centers, contexts, valid = w2v._pairs_for_block(jnp.asarray(block), key,
+                                                    win)
+    pos_c, pos_x, valid2 = w2v._pairs_pos_for_block(jnp.asarray(block), key,
+                                                    win)
+    negs = jnp.asarray(rng.integers(0, V, kB).astype(np.int32))
+    w_in = jnp.asarray((rng.standard_normal((V, D)) * 0.1).astype(np.float32))
+    w_out = jnp.asarray((rng.standard_normal((V, D)) * 0.1).astype(np.float32))
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("dp",))
+
+    def run(fn):
+        return jax.shard_map(fn, mesh=mesh, in_specs=(PS(), PS()),
+                             out_specs=(PS(), PS()))(w_in, w_out)
+
+    a_in, a_out = run(lambda wi, wo: w2v._sgns_apply_shared(
+        wi, wo, centers, contexts, valid, negs, 0.1, neg_weight=5 / kB,
+        axis_name="dp"))
+    b_in, b_out = run(lambda wi, wo: w2v._sgns_apply_shared_pos(
+        wi, wo, jnp.asarray(block), pos_c, pos_x, valid2, negs, 0.1,
+        neg_weight=5 / kB, axis_name="dp"))
+    np.testing.assert_allclose(np.asarray(a_in), np.asarray(b_in),
+                               rtol=2e-4, atol=2e-6)
+    np.testing.assert_allclose(np.asarray(a_out), np.asarray(b_out),
+                               rtol=2e-4, atol=2e-6)
+
+
+def test_sgns_config_has_no_kernel_switch():
+    """The shared-negative gradients have one implementation (plain XLA):
+    the config takes no kernel option."""
+    with pytest.raises(TypeError):
+        w2v.SGNSConfig(shared_negatives=128, use_pallas=True)
+    assert "use_pallas" not in w2v.SGNSConfig.__dataclass_fields__
